@@ -2,29 +2,48 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, as the check runs it
-    python3 chip_smoke.py --phases build,k1,k2   # a short kernel check
+    python3 chip_smoke.py --phases build,k1,k2,k3   # a short kernel check
 
 Phases, in order (each passes or raises; any failure exits non-zero):
 
   card     the card's name and power limit
-  build    nvcc builds K1 and K2 from csrc/ into build/ (in parallel)
+  build    nvcc builds K1, K2 and K3 from csrc/ into build/ (in parallel)
   k1       K1 (paged attention, mixed rows) against its plain version at
            Llama-3.1-8B shapes (KV=8, rep=4, hd=128, page_size=64), bf16
            and float32, with window=32/softcap=50 in one case
   k2       K2 (NBL linear) against its plain version at d=4096,
            M in {8, 512, 1000}, with and without residual, bf16 and float32
+  k3       K3 (flash attention over positions) against its plain version
+           at Llama shapes (H=32, KV=8, hd=128; S in {128, 512, 2048},
+           a bucketed prompt, a partial prefill with T = 1024 + 512, one
+           case with window=32/softcap=50) and at hd 16/32/64/256, rep
+           1/2/8, ragged S, T != S, non-causal; bf16 and float32
   tiny     tiny-dense and NBL-2 tiny-dense served on the CPU and on the GPU
            from the same weights: the greedy tokens must be equal
   llama    Llama-3.1-8B at full width (random weights from a seed, bf16)
            with 12 NBL layers served through Engine(paged, chunked, fused)
            on 8 requests; asserts finite logits and K1/K2 launch counts;
            then the same weights dense (m=0), printed beside it
+  admit    the same NBL-12 model and requests through
+           Engine(chunked_prefill=False), after one unmeasured warm-up
+           pass: one whole-prompt prefill per admission (K3 in every
+           attention layer, K2 in every NBL layer), then fused decode
+           steps (K1, K2); asserts finite logits and
+           K3 = 20 x admissions, K1 = 20 x steps, K2 = 12 x (admissions +
+           steps); prints tok/s, median step, each admission's time
+  generate greedy tokens of generate(), Engine(chunked_prefill=False) and
+           Engine(chunked_prefill=True) equal on CPU and GPU for tiny-dense
+           and NBL-2 tiny-dense; Llama NBL-12 at B=4, S=512: generate's
+           prefill logits against each Engine admission's (bf16
+           tolerance), token agreement printed
   table    each kernel's time at the llama phase's decode and 512-token
-           chunk shapes, beside its plain version, its bound and a
+           chunk shapes (K1, K2) and at the admission shapes S=512 and
+           S=2048 (K3), beside its plain version, its bound and a
            library yardstick the port never calls
-  profile  (only when named) the llama phase's NBL-12 run once more under
-           torch.profiler: device time by kernel family, the device's
-           idle share of the run's wall time
+  profile  (only when named) the llama phase's NBL-12 run once more, and
+           the admit phase's 8 admissions alone, under torch.profiler:
+           device time by kernel family, the device's idle share of the
+           wall time
 
 The next-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -42,7 +61,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("card", "build", "k1", "k2", "tiny", "llama", "table")
+PHASES = ("card", "build", "k1", "k2", "k3", "tiny", "llama", "admit",
+          "generate", "table")
 EXTRA_PHASES = ("profile",)         # run only when named in --phases
 
 # H100 SXM data-sheet peaks (dense): bytes/s of HBM3 and ops/s per type.
@@ -52,6 +72,14 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 # tolerances, kernel vs plain version on the same inputs (valid rows only)
 K1_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}    # atol = rtol
 K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K3 bf16: the kernel rounds the probability tile to bf16 for the PV
+# product (the plain version keeps it float32) and rounds the output once
+K3_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+# Llama logits, generate's batch-4 prefill vs an engine admission at batch
+# 1: the same kernels on the same rows, but cuBLAS tiles batch-4 and
+# batch-1 GEMMs differently, and 32 bf16 layers (8-bit mantissa, one ulp
+# ~ 0.4 %) compound the rounding differences
+LOGIT_TOL_BF16 = 0.1                # atol = rtol
 NBL_LAYERS = tuple(range(20, 32))   # paper m=12: the deepest 12 attention layers
 
 
@@ -212,6 +240,112 @@ def phase_k2(torch, dev):
     return worst
 
 
+# ------------------------------------------------------------------ K3 ----
+
+def _causal(s):
+    import numpy as np
+    pos = np.arange(s, dtype=np.int32)
+    return pos, pos
+
+
+def _bucket(s, valid):
+    """A prompt of ``valid`` tokens right-padded to ``s`` (admission)."""
+    import numpy as np
+    pos = np.arange(s, dtype=np.int32)
+    return pos, np.where(pos < valid, pos, -1).astype(np.int32)
+
+
+def _prefix(pages, ps, prefix_len, s):
+    """A partial prefill: suffix queries at prefix_len + i over [prefix
+    pages gathered through the table (-1 past prefix_len) ++ suffix]."""
+    import numpy as np
+    qpos = (prefix_len + np.arange(s)).astype(np.int32)
+    t = np.arange(pages * ps)
+    return qpos, np.concatenate(
+        [np.where(t < prefix_len, t, -1).astype(np.int32), qpos])
+
+
+def _k3_inputs(torch, gen, dev, dtype, c):
+    b, h, kv, hd = c.get("b", 1), c.get("h", 32), c.get("kv", 8), \
+        c.get("hd", 128)
+    qpos, kpos = c["pos"]
+    q = torch.randn((b, h, len(qpos), hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, len(kpos), hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, len(kpos), hd), generator=gen, device=dev).to(dtype)
+    return (q, k, v, torch.from_numpy(qpos).to(dev),
+            torch.from_numpy(kpos).to(dev))
+
+
+def _k3_check(torch, gen, dev, dtype, c, label):
+    """K3 against its plain version on one case; returns max |err| over
+    the rows with an attended key (the others must be zero)."""
+    from repro_torch.kernels.flash_attention import (
+        attend_mask, flash_attention, flash_attention_ref)
+    args = _k3_inputs(torch, gen, dev, dtype, c)
+    kw = dict(causal=c.get("causal", True), window=c.get("window"),
+              softcap=c.get("softcap"))
+    out = flash_attention(*args, **kw)
+    ref = flash_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    rows = attend_mask(args[3], args[4], causal=kw["causal"],
+                       window=kw["window"]).any(dim=1)
+    tol = K3_TOL[_dtname(dtype)]
+    o, r = out.float()[:, :, rows], ref.float()[:, :, rows]
+    err = (o - r).abs().max().item()
+    bad = ((o - r).abs() > tol + tol * r.abs()).sum().item()
+    dead = out.float()[:, :, ~rows]
+    log(f"  k3 {_dtname(dtype):8s} {label}: max|err| {err:.3e} "
+        f"(atol=rtol={tol}); rows without a key zero: "
+        f"{bool((dead == 0).all())} ({int((~rows).sum())} rows)")
+    if bad or not torch.isfinite(out).all() or not (dead == 0).all():
+        raise AssertionError(f"K3 disagrees with its plain version: {bad} "
+                             f"elements out of tolerance")
+    return err
+
+
+def _k3_cases():
+    """(label, case) lists: Llama-3.1-8B shapes, then other geometries."""
+    llama = [
+        ("S=128 causal", dict(pos=_causal(128))),
+        ("S=512 causal", dict(pos=_causal(512))),
+        ("S=2048 causal", dict(pos=_causal(2048))),
+        ("S=2048 bucket of a 1499-token prompt",
+         dict(pos=_bucket(2048, 1499))),
+        ("partial prefill S=512 over 16 prefix pages (T=1024+512, prefix "
+         "960)", dict(pos=_prefix(16, 64, 960, 512))),
+        ("S=512 window=32 softcap=50",
+         dict(pos=_causal(512), window=32, softcap=50.0)),
+    ]
+    geometry = [
+        ("hd=16 rep=2 B=2 S=40 (tiny-dense)",
+         dict(b=2, h=4, kv=2, hd=16, pos=_causal(40))),
+        ("hd=32 rep=1 S=100 window=16",
+         dict(h=8, kv=8, hd=32, pos=_causal(100), window=16)),
+        ("hd=64 rep=2 S=77 T=141 partial prefill",
+         dict(h=16, kv=8, hd=64, pos=_prefix(4, 16, 48, 77))),
+        ("hd=256 rep=8 S=130 softcap=30",
+         dict(h=16, kv=2, hd=256, pos=_causal(130), softcap=30.0)),
+        ("hd=64 rep=2 S=64 bucket of 20 window=8 (rows 28.. see no key)",
+         dict(h=4, kv=2, hd=64, pos=_bucket(64, 20), window=8)),
+        ("hd=128 rep=4 S=33 T=50 non-causal, padded keys",
+         dict(h=8, kv=2, hd=128, causal=False,
+              pos=(_causal(33)[0], _bucket(50, 41)[1]))),
+    ]
+    return llama, geometry
+
+
+def phase_k3(torch, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    llama, geometry = _k3_cases()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c in llama + geometry:
+            geo = "" if "hd" in c else "Llama H=32 KV=8 hd=128 "
+            worst = max(worst, _k3_check(torch, gen, dev, dtype, c,
+                                         geo + label))
+    return worst
+
+
 # ---------------------------------------------------------------- tiny ----
 
 def phase_tiny(torch, dev):
@@ -252,12 +386,27 @@ def _nbl_params(torch, cfg, params, layer_ids, gen, dev):
     return dict(params, layers=layers)
 
 
-def _serve_llama(torch, cfg, params, prompts, dev, record=None):
-    """Serve the prompts through the paged chunked engine, checking each
-    step's emitted logits rows for finiteness. Returns a summary dict."""
+def _serve_llama(torch, cfg, params, prompts, dev, record=None,
+                 chunked=True):
+    """Serve the prompts through the paged fused engine, chunked or with
+    whole-prompt admission, checking every emitting row's logits (the
+    admission prefill's included) for finiteness and timing each
+    admission. Returns a summary dict."""
     from repro_torch.launch.engine import Engine
+    admissions: list = []
 
     class CheckedEngine(Engine):
+        def _admit(self, req, slot):
+            t0 = time.perf_counter()
+            super()._admit(req, slot)  # whole-prompt: ends in a readback
+            admissions.append((len(req.prompt), time.perf_counter() - t0))
+
+        def _run_partial_prefill(self, slot, req, start, end):
+            logits = super()._run_partial_prefill(slot, req, start, end)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite admission logits")
+            return logits
+
         def _execute_fused(self, plan):
             if record is not None:
                 toks, rp, rl = self._fused_inputs(plan)
@@ -274,9 +423,10 @@ def _serve_llama(torch, cfg, params, prompts, dev, record=None):
             return super()._commit_fused(plan, logits)
 
     max_new = 64
+    kw = dict(prefill_chunk_tokens=512) if chunked else {}
     eng = CheckedEngine(cfg, params, max_len=max(map(len, prompts)) + max_new,
                         n_slots=8, page_size=64, step_tokens=512,
-                        prefill_chunk_tokens=512, device=dev)
+                        chunked_prefill=chunked, device=dev, **kw)
     rids = [eng.submit(p, max_new, strict=True) for p in prompts]
     torch.cuda.synchronize()
     steps = []
@@ -290,15 +440,19 @@ def _serve_llama(torch, cfg, params, prompts, dev, record=None):
     if any(len(eng.finished[r].tokens) != max_new for r in rids):
         raise AssertionError("a request did not finish its max_new tokens")
     return dict(engine=eng, wall_s=wall, tokens=n_tok, steps=steps,
-                dispatches=eng.n_fused_dispatches,
-                tok_s=n_tok / wall, median_step_ms=1e3 * statistics.median(steps))
+                dispatches=eng.n_fused_dispatches, prefills=eng.n_prefills,
+                admissions=admissions, tok_s=n_tok / wall,
+                median_step_ms=1e3 * statistics.median(steps))
 
 
-def phase_llama(torch, dev, ctx):
+def _llama_model(torch, dev, ctx):
+    """Llama-3.1-8B at full width (random bf16 weights, seed 0), its NBL-12
+    variant sharing every other tensor, and the 8 prompts; built once."""
+    if "model" in ctx:
+        return ctx["model"]
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.surgery import compress_config
-    from repro_torch.kernels import K1, K2
     from repro_torch.models.transformer import init_params
 
     cfg = get_config("llama-3.1-8b")
@@ -308,19 +462,31 @@ def phase_llama(torch, dev, ctx):
     ncfg = compress_config(cfg, NBL_LAYERS, "nbl")
     nparams = _nbl_params(torch, cfg, params, NBL_LAYERS, gen, dev)
     torch.cuda.synchronize()
-    n_attn = sum(1 for b in ncfg.blocks() if b.kind == "attn")
-    n_nbl = sum(1 for b in ncfg.blocks() if b.kind == "nbl")
     log(f"  llama-3.1-8b: 32 layers, d=4096, GQA 32/8, d_ff=14336, vocab "
         f"128256, bf16, random weights (seed 0) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    log(f"  NBL layers (m={n_nbl}): {list(NBL_LAYERS)}; attention layers "
-        f"left: {n_attn}")
+    log(f"  NBL layers (m={len(NBL_LAYERS)}): {list(NBL_LAYERS)}; attention "
+        f"layers left: {sum(1 for b in ncfg.blocks() if b.kind == 'attn')}")
     rng = np.random.default_rng(0)
     lens = np.linspace(128, 2048, 8).astype(int)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-    log(f"  8 requests, prompt lengths {lens.tolist()}, max_new 64; "
-        f"Engine(paged, chunked, page_size=64, n_slots=8, step_tokens=512, "
-        f"prefill_chunk_tokens=512)")
+    ctx["model"] = (cfg, params, ncfg, nparams, prompts)
+    return ctx["model"]
+
+
+def _kinds(cfg):
+    return (sum(1 for b in cfg.blocks() if b.kind == "attn"),
+            sum(1 for b in cfg.blocks() if b.kind == "nbl"))
+
+
+def phase_llama(torch, dev, ctx):
+    from repro_torch.kernels import K1, K2
+
+    cfg, params, ncfg, nparams, prompts = _llama_model(torch, dev, ctx)
+    n_attn, n_nbl = _kinds(ncfg)
+    log(f"  8 requests, prompt lengths {[len(p) for p in prompts]}, max_new "
+        f"64; Engine(paged, chunked, page_size=64, n_slots=8, "
+        f"step_tokens=512, prefill_chunk_tokens=512)")
 
     record: list = []
     K1.reset()
@@ -346,6 +512,124 @@ def phase_llama(torch, dev, ctx):
     ctx.update(cfg=ncfg, params=nparams, engine=nbl["engine"], record=record,
                k1_launches=k1_n, k2_launches=k2_n, prompts=prompts,
                wall_s=nbl["wall_s"])
+
+
+# --------------------------------------------------------------- admit ----
+
+def phase_admit(torch, dev, ctx):
+    from repro_torch.kernels import K1, K2, K3
+
+    _, _, ncfg, nparams, prompts = _llama_model(torch, dev, ctx)
+    n_attn, n_nbl = _kinds(ncfg)
+    log(f"  NBL-12, the same 8 requests (prompt lengths "
+        f"{[len(p) for p in prompts]}), max_new 64; "
+        f"Engine(paged, chunked_prefill=False, bucket_prompts=True, "
+        f"page_size=64, n_slots=8, step_tokens=512)")
+    # a first pass loads the GEMM and elementwise kernels of the prefill's
+    # new shapes (lazy module loading); the measured pass follows it
+    warm = _serve_llama(torch, ncfg, nparams, prompts, dev, chunked=False)
+    log(f"  warm-up pass: {warm['wall_s']:.3f} s, admissions (ms) "
+        f"{[round(1e3 * t, 2) for _, t in warm['admissions']]}")
+    for c in (K1, K2, K3):
+        c.reset()
+    run = _serve_llama(torch, ncfg, nparams, prompts, dev, chunked=False)
+    k1_n, k2_n, k3_n = K1.launches, K2.launches, K3.launches
+    disp, adm = run["dispatches"], run["prefills"]
+    want = (n_attn * disp, n_nbl * (adm + disp), n_attn * adm)
+    log(f"  {run['tokens']} tokens in {run['wall_s']:.3f} s -> "
+        f"{run['tok_s']:.1f} generated tok/s; {adm} admission prefills, "
+        f"{disp} fused steps, median step {run['median_step_ms']:.2f} ms")
+    log(f"  launches: K3 {k3_n} (= {n_attn} x {adm} admissions: "
+        f"{k3_n == want[2]}), K1 {k1_n} (= {n_attn} x {disp} steps: "
+        f"{k1_n == want[0]}), K2 {k2_n} (= {n_nbl} x ({adm} + {disp}): "
+        f"{k2_n == want[1]})")
+    for plen, sec in run["admissions"]:
+        log(f"    admission of a {plen:4d}-token prompt (bucket "
+            f"{1 << (plen - 1).bit_length():4d}): {1e3 * sec:8.2f} ms "
+            f"(prefill, page assignment, first-token readback)")
+    if (k1_n, k2_n, k3_n) != want or adm != len(prompts) or disp == 0:
+        raise AssertionError("the admission path did not run every prefill "
+                             "through K3 and K2 and every step through K1 "
+                             "and K2")
+    ctx.update(k3_launches=k3_n, admit=run)
+
+
+# ------------------------------------------------------------ generate ----
+
+def _engine_tokens(cfg, params, prompts, dev, *, chunked, max_new):
+    from repro_torch.launch.engine import Engine
+    eng = Engine(cfg, params, max_len=max(map(len, prompts)) + max_new,
+                 n_slots=4, page_size=8, step_tokens=16,
+                 chunked_prefill=chunked, device=dev)
+    rids = [eng.submit(p, max_new, strict=True) for p in prompts]
+    out = eng.run()
+    return [out[r].tolist() for r in rids]
+
+
+def phase_generate(torch, dev, ctx):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.surgery import nbl_variant
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import init_params, params_to, prefill
+
+    rng = np.random.default_rng(6)
+    lens = (3, 8, 17, 24, 33, 40)
+    for m in (0, 2):
+        cfg = nbl_variant(get_config("tiny-dense"), m)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+        p_cpu = init_params(cfg, seed=4, device="cpu")
+        runs = {}
+        for where, params in (("cpu", p_cpu), ("gpu", params_to(p_cpu, dev))):
+            d = params["embed"].device
+            runs[f"generate/{where}"] = [
+                generate(cfg, params, p[None], max_new=8)[0].tolist()
+                for p in prompts]
+            for chunked in (False, True):
+                runs[f"engine(chunked={chunked})/{where}"] = _engine_tokens(
+                    cfg, params, prompts, d, chunked=chunked, max_new=8)
+        ref = runs["generate/cpu"]
+        same = {k: v == ref for k, v in runs.items()}
+        log(f"  tiny-dense NBL-{m}: {len(prompts)} prompts (lengths "
+            f"{list(lens)}), max_new 8; tokens equal to generate on the CPU: "
+            + ", ".join(f"{k} {v}" for k, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"NBL-{m}: tokens differ: {runs}")
+
+    _, _, ncfg, nparams, _ = _llama_model(torch, dev, ctx)
+    b, s, max_new = 4, 512, 16
+    tokens = torch.from_numpy(
+        rng.integers(0, ncfg.vocab_size, (b, s))).to(dev)
+    gen_logits, _ = prefill(ncfg, nparams, tokens, cache_len=s + max_new)
+    gen_tokens = generate(ncfg, nparams, tokens, max_new=max_new).cpu()
+    admitted = {}
+
+    class Recording(Engine):
+        def _run_partial_prefill(self, slot, req, start, end):
+            logits = super()._run_partial_prefill(slot, req, start, end)
+            admitted[req.rid] = logits[0, -1].float()
+            return logits
+
+    eng = Recording(ncfg, nparams, max_len=s + max_new, n_slots=b,
+                    page_size=64, chunked_prefill=False, device=dev)
+    rids = [eng.submit(t.cpu().numpy(), max_new, strict=True) for t in tokens]
+    out = eng.run()
+    g = gen_logits[:, -1].float()
+    a = torch.stack([admitted[r] for r in rids])
+    err = (g - a).abs().max().item()
+    bad = ((g - a).abs() > LOGIT_TOL_BF16 * (1 + a.abs())).sum().item()
+    first = (g.argmax(-1) == a.argmax(-1)).tolist()
+    agree = [int((gen_tokens[i] == torch.from_numpy(out[r])).sum())
+             for i, r in enumerate(rids)]
+    log(f"  llama NBL-12, B={b} S={s} max_new={max_new}: generate's prefill "
+        f"logits vs each engine admission's, max|diff| {err:.3e} (|logits| "
+        f"up to {g.abs().max().item():.2f}; atol=rtol={LOGIT_TOL_BF16}); "
+        f"first tokens equal {first}; tokens equal per request (of "
+        f"{max_new}, printed, not asserted): {agree}")
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError("generate and the engine admission disagree "
+                             "on the first-token logits")
 
 
 # --------------------------------------------------------------- table ----
@@ -472,27 +756,74 @@ def phase_table(torch, dev, ctx, errs):
             f"ms, plain {p_ms:.4f} ms, addmm+add {l_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
 
-    log(f"  ported kernels (launches on the llama phase's NBL-12 run): "
-        f"paged_mixed {ctx['k1_launches']}, nbl_linear {ctx['k2_launches']}")
+    for tag, s in (("s2048", 2048), ("s512", 512)):
+        out[("flash_attention", tag)] = _k3_table_row(torch, gen, dev, cfg, s)
+
+    log(f"  ported kernels, launches on their path's run: paged_mixed "
+        f"{ctx['k1_launches']} and nbl_linear {ctx['k2_launches']} (llama "
+        f"phase, chunked), flash_attention {ctx['k3_launches']} (admit phase)")
     kernels = []
-    for name, source, replaces, launches, perr in (
+    for name, source, replaces, launches, perr, main, other in (
             ("paged_mixed", "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:129",
-             ctx["k1_launches"], errs.get("k1", 0.0)),
+             ctx["k1_launches"], errs.get("k1", 0.0), "decode", "chunk512"),
             ("nbl_linear", "src/repro_torch/csrc/nbl_linear.cu",
              "src/repro/kernels/nbl_linear.py:59",
-             ctx["k2_launches"], errs.get("k2", 0.0))):
-        dd, cc = out[(name, "decode")], out[(name, "chunk512")]
+             ctx["k2_launches"], errs.get("k2", 0.0), "decode", "chunk512"),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:94",
+             ctx["k3_launches"], errs.get("k3", 0.0), "s2048", "s512")):
+        dd, cc = out[(name, main)], out[(name, other)]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
             max_abs_err=max(perr, dd["max_abs_err"], cc["max_abs_err"]),
             ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
             bound_by=dd["bound_by"], library_ms=dd["library_ms"],
-            shape="decode step (W=1)",
-            chunk512={k: cc[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}))
+            shape=("decode step (W=1)" if main == "decode" else
+                   "admission prefill S=2048 (B=1, H=32, KV=8, hd=128, "
+                   "causal)"),
+            **{other: {k: cc[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}))
     return kernels
+
+
+def _k3_bound(qpos, kpos, b, h, kv, hd, dtype_bytes, ops_peak):
+    """Least time for the K3 call: q, k, v and out once (and the
+    positions); QK and PV flops of the (query, key) pairs this call's
+    positions attend."""
+    import torch
+    from repro_torch.kernels.flash_attention import attend_mask
+    s, t = len(qpos), len(kpos)
+    pairs = int(attend_mask(torch.from_numpy(qpos), torch.from_numpy(kpos),
+                            causal=True, window=None).sum())
+    nbytes = dtype_bytes * b * hd * (2 * h * s + 2 * kv * t) + 4 * (s + t)
+    tb, to = nbytes / HBM_BYTES_S, 4.0 * hd * b * h * pairs / ops_peak
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def _k3_table_row(torch, gen, dev, cfg, s):
+    """K3 at an admission shape: one prompt of s tokens, causal, bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    c = dict(h=h, kv=kv, hd=hd, pos=_causal(s))
+    args = [_k3_inputs(torch, gen, dev, torch.bfloat16, c) for _ in range(4)]
+    iters = 20 if s >= 2048 else 40
+    k_ms = _time_ms(flash_attention, args, iters)
+    p_ms = _time_ms(flash_attention_ref, args[:2], 4, 1)
+    l_ms = _time_ms(lambda q, k, v, qp, kp: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), args, iters)
+    err = (flash_attention(*args[0]).float()
+           - flash_attention_ref(*args[0]).float()).abs().max().item()
+    b_ms, b_by = _k3_bound(*c["pos"], 1, h, kv, hd, 2,
+                           PEAK_OPS_S["bfloat16"])
+    log(f"  K3 flash_attention admission S={s:4d} (B=1 H={h} KV={kv} "
+        f"hd={hd}, causal): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa "
+        f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms, max_abs_err=err)
 
 
 # ------------------------------------------------------------- profile ----
@@ -503,6 +834,8 @@ def _family(name: str) -> str:
         return "K1 paged_mixed"
     if "nbl_bf16_kernel" in name or "nbl_f32_kernel" in name:
         return "K2 nbl_linear"
+    if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+        return "K3 flash_attention"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "cublas", "gemv",
                               "nvjet")):
         return "cuBLAS GEMM/GEMV (nvjet, cutlass)"
@@ -511,12 +844,17 @@ def _family(name: str) -> str:
     return "other (elementwise, index, reduce)"
 
 
-def phase_profile(torch, dev, ctx):
+def _profiled(torch, fn):
+    """Run fn under torch.profiler; returns (fn's result, wall s, device
+    busy us, {family: us}, {kernel name: us})."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        run = _serve_llama(torch, ctx["cfg"], ctx["params"], ctx["prompts"],
-                           dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
@@ -536,16 +874,40 @@ def phase_profile(torch, dev, ctx):
         us = e.time_range.end - e.time_range.start
         fam[_family(e.name)] = fam.get(_family(e.name), 0.0) + us
         names[e.name] = names.get(e.name, 0.0) + us
-    wall_us = 1e6 * run["wall_s"]
-    log(f"  profiled NBL-12 run: wall {run['wall_s']:.3f} s (unprofiled "
-        f"{ctx['wall_s']:.3f} s), {run['dispatches']} steps; device busy "
-        f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f} % of wall, idle "
-        f"{100 * (1 - busy / wall_us):.1f} %")
+    return res, wall, busy, fam, names
+
+
+def _log_profile(wall, busy, fam, names):
+    log(f"    device busy {busy / 1e3:.1f} ms = {100 * busy / (1e6 * wall):.1f}"
+        f" % of the profiled wall {wall:.3f} s, idle "
+        f"{100 * (1 - busy / (1e6 * wall)):.1f} %")
     for k, us in sorted(fam.items(), key=lambda kv: -kv[1]):
         log(f"    {k:36s} {us / 1e3:9.1f} ms  {100 * us / busy:5.1f} % "
             "of busy")
     for k, us in sorted(names.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    top {us / 1e3:9.1f} ms  {k[:100]}")
+
+
+def phase_profile(torch, dev, ctx):
+    from repro_torch.launch.engine import Engine
+    run, wall, busy, fam, names = _profiled(torch, lambda: _serve_llama(
+        torch, ctx["cfg"], ctx["params"], ctx["prompts"], dev))
+    log(f"  profiled NBL-12 chunked run: {run['dispatches']} steps "
+        f"(unprofiled wall {ctx['wall_s']:.3f} s)")
+    _log_profile(wall, busy, fam, names)
+
+    # the 8 whole-prompt admissions alone (no step budget; the scheduler
+    # admits 4 a call), each a prefill + page assignment + readback
+    eng = Engine(ctx["cfg"], ctx["params"],
+                 max_len=max(map(len, ctx["prompts"])) + 64, n_slots=8,
+                 page_size=64, chunked_prefill=False, device=dev)
+    for p in ctx["prompts"]:
+        eng.submit(p, 64, strict=True)
+    n, wall, busy, fam, names = _profiled(
+        torch, lambda: eng._plan_admission() + eng._plan_admission())
+    log(f"  profiled NBL-12 whole-prompt admissions: {n} admitted, "
+        f"{eng.n_prefill_tokens} prompt tokens")
+    _log_profile(wall, busy, fam, names)
 
 
 # ---------------------------------------------------------------- main ----
@@ -611,10 +973,16 @@ def main(argv=None) -> int:
                 errs["k1"] = phase_k1(torch, dev)
             elif ph == "k2":
                 errs["k2"] = phase_k2(torch, dev)
+            elif ph == "k3":
+                errs["k3"] = phase_k3(torch, dev)
             elif ph == "tiny":
                 phase_tiny(torch, dev)
             elif ph == "llama":
                 phase_llama(torch, dev, ctx)
+            elif ph == "admit":
+                phase_admit(torch, dev, ctx)
+            elif ph == "generate":
+                phase_generate(torch, dev, ctx)
             elif ph == "table":
                 kernels = phase_table(torch, dev, ctx, errs)
             elif ph == "profile":

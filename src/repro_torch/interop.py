@@ -5,7 +5,12 @@ PYTHON AND NUMPY (this module imports neither ``jax`` nor ``repro``):
 
   config_from_jax(jcfg)              a ``repro`` ModelConfig -> the port's
   from_jax_params(cfg, params_np)    JAX params (numpy leaves) -> port params
-  cache_from_jax(cfg, cache_np)      JAX paged cache (numpy) -> port cache
+  cache_from_jax(cfg, cache_np)      JAX cache (numpy) -> port cache: the
+                                     paged pools, or the monolithic /
+                                     prefill ring {k, v, kpos}
+
+Like every entry point of the port, the converters put their tensors on
+``device="cuda"`` unless they are given another device.
 
 JAX params are stacked per stack group: ``params["groups"][gi]["scanned"]
 [u]`` has a leading ``repeat`` dim, and a shared block's single copy sits
@@ -56,7 +61,7 @@ def _tree(x, fn):
     return None if x is None else fn(x)
 
 
-def from_jax_params(cfg, params_np: dict, *, device="cpu") -> dict:
+def from_jax_params(cfg, params_np: dict, *, device="cuda") -> dict:
     """Port params from JAX params whose leaves are numpy arrays. ``cfg``
     is the JAX config or its port twin (only ``stack`` is read)."""
     dev = resolve_device(device)
@@ -80,10 +85,12 @@ def from_jax_params(cfg, params_np: dict, *, device="cpu") -> dict:
     return out
 
 
-def cache_from_jax(cfg, cache_np: dict, *, device="cpu") -> dict:
-    """Port paged cache ``{"layers": [...]}`` from a JAX paged cache tree
-    (``repro.models.paging.init_paged_cache`` layout, numpy leaves):
-    attention pools are unstacked along the group's repeat dim."""
+def cache_from_jax(cfg, cache_np: dict, *, device="cuda") -> dict:
+    """Port cache ``{"layers": [...]}`` from a JAX cache tree (numpy
+    leaves): a paged cache (``repro.models.paging.init_paged_cache``
+    layout) gives ``{"k_pages", "v_pages"}`` per attention layer, the cache
+    ``prefill`` / ``decode_step`` carry gives ``{"k", "v", "kpos"}``. Each
+    leaf is unstacked along its group's repeat dim."""
     dev = resolve_device(device)
     layers = []
     for gi, g in enumerate(cfg.stack):
@@ -91,8 +98,9 @@ def cache_from_jax(cfg, cache_np: dict, *, device="cpu") -> dict:
             for u, blk in enumerate(g.unit):
                 c = cache_np["groups"][gi]["blocks"][u]
                 if blk.kind == "attn":
-                    layers.append({k: _tensor(c[k][r], dev)
-                                   for k in ("k_pages", "v_pages")})
+                    keys = ("k_pages", "v_pages") if "k_pages" in c \
+                        else ("k", "v", "kpos")
+                    layers.append({k: _tensor(c[k][r], dev) for k in keys})
                 else:
                     layers.append(None)
     return {"layers": layers}

@@ -1,13 +1,14 @@
-"""Continuous-batching serving engine over the PAGED KV cache, with chunked
-prefill and the fused plan -> execute -> commit step.
+"""Continuous-batching serving engine over the PAGED KV cache, with the fused
+plan -> execute -> commit step.
 
-Port of the paged, chunked, fused path of ``repro.launch.engine.Engine``:
+Port of the paged, fused path of ``repro.launch.engine.Engine``:
 
   plan     (host)  admit queued requests into free slots under the step's
-                   decode-priority token budget, grant page-aligned prompt
-                   chunks oldest-first, fault the page each decoding slot
-                   writes next (preempting the youngest request on a dry
-                   pool);
+                   decode-priority token budget (a non-chunked admission
+                   runs its prompt's prefill here), grant page-aligned
+                   prompt chunks oldest-first, fault the page each decoding
+                   slot writes next (preempting the youngest request on a
+                   dry pool);
   execute  (card)  ONE ``transformer.fused_step`` call over an
                    ``(n_slots, W)`` batch of decode rows (1 token), chunk
                    rows (their span) and inactive rows (0 tokens), W a
@@ -15,14 +16,24 @@ Port of the paged, chunked, fused path of ``repro.launch.engine.Engine``:
   commit   (host)  ONE logits readback (``.cpu()``), greedy emission,
                    chunk progress, retirement.
 
-Slot state machine: admitted -> chunking(pos) -> decoding -> retired.
-Admission runs no prefill: a prompt is served entirely by chunk rows of
-the fused step, and its final chunk's last-token logits seed decoding.
+Two admissions, as in the JAX engine:
+
+  chunked_prefill=True   admitted -> chunking(pos) -> decoding -> retired.
+                         Admission runs no prefill: the prompt is served by
+                         chunk rows of the fused step, and its final
+                         chunk's last-token logits seed decoding.
+  chunked_prefill=False  admitted -> decoding -> retired. Admission
+                         allocates the prompt's pages and runs ONE prefill
+                         of the whole prompt at batch 1 (right-padded to a
+                         power-of-two bucket; attention through K3),
+                         writes its position-aligned cache into the pages
+                         (``paging.assign_pages``) and emits the first
+                         token from its last-token logits.
 
 Modes of the JAX engine that belong to later slices of the port raise
 ``NotImplementedError`` naming the slice: the ring layout, the legacy
-two-dispatch step (``fused_step=False``), non-chunked admission,
-``prefix_sharing``, speculative ``drafts`` and ``obs``.
+two-dispatch step (``fused_step=False``), ``prefix_sharing``, speculative
+``drafts`` and ``obs``.
 """
 from __future__ import annotations
 
@@ -39,15 +50,14 @@ from repro_torch.launch.stepplan import (
     ChunkRow, StepPlan, chunk_span, decode_first_budget,
 )
 from repro_torch.models.paging import (
-    DEFAULT_PAGE_SIZE, PageAllocator, build_page_table, init_paged_cache,
-    n_caching_attn_layers, pages_per_seq, pool_pages_for_budget, span_pages,
+    DEFAULT_PAGE_SIZE, PageAllocator, assign_pages, build_page_table,
+    init_paged_cache, n_caching_attn_layers, pages_per_seq,
+    pool_pages_for_budget, pow2_ceil, span_pages,
 )
-from repro_torch.models.transformer import fused_step
+from repro_torch.models.transformer import fused_step, prefill
 
 _LATER = {
     "paged": "the ring slot layout (ROADMAP.md §A7)",
-    "chunked_prefill": "the next slice: non-chunked admission prefill "
-                       "and generate(), carried by K3 (ROADMAP.md §A)",
     "fused_step": "the legacy two-dispatch step (ROADMAP.md §A7)",
     "prefix_sharing": "prefix sharing (ROADMAP.md §A)",
     "drafts": "speculative decoding (ROADMAP.md §A7)",
@@ -66,16 +76,18 @@ class Engine:
     Either ``n_slots`` or ``cache_budget_bytes`` (converted through
     ``nbl_page_budget``) fixes the concurrency; given both, the budget is a
     ceiling. ``max_len`` bounds prompt + generated tokens per request.
-    ``page_size`` must be a power of two. Prompts are split into
-    page-aligned chunks of ``prefill_chunk_tokens`` (rounded up to a page
-    multiple; default one page). ``step_tokens`` (default None = unbounded)
+    ``page_size`` must be a power of two. With ``chunked_prefill`` (the
+    default), prompts are split into page-aligned chunks of
+    ``prefill_chunk_tokens`` (rounded up to a page multiple; default one
+    page); without it, admission prefills the whole prompt, right-padded
+    to a power-of-two bucket when ``bucket_prompts`` (the JAX default) or
+    exact otherwise. ``step_tokens`` (default None = unbounded)
     is the per-step decode-priority token budget: decode rows are charged
     first, the remainder grants chunk spans and paces admission.
 
     ``device`` (default ``"cuda"``) holds the page pools and must hold the
-    params; ``"cuda"`` with no CUDA device raises. ``paged`` and
-    ``chunked_prefill`` default to True, the only layout and admission
-    this slice of the port serves.
+    params; ``"cuda"`` with no CUDA device raises. ``paged`` defaults to
+    True, the only layout this slice of the port serves.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
@@ -85,6 +97,7 @@ class Engine:
                  paged: bool = True,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  expected_len: Optional[int] = None,
+                 bucket_prompts: bool = True,
                  prefix_sharing: bool = False,
                  chunked_prefill: bool = True,
                  prefill_chunk_tokens: Optional[int] = None,
@@ -93,7 +106,6 @@ class Engine:
                  obs=None, drafts: Optional[dict] = None,
                  device="cuda"):
         for name, val in (("paged", not paged),
-                          ("chunked_prefill", not chunked_prefill),
                           ("fused_step", not fused_step),
                           ("prefix_sharing", prefix_sharing),
                           ("drafts", drafts), ("obs", obs is not None)):
@@ -108,13 +120,17 @@ class Engine:
         if self.page_size < 1 or self.page_size & (self.page_size - 1):
             raise ValueError(f"page_size must be a power of two, "
                              f"got {page_size}")
-        ct = self.page_size if prefill_chunk_tokens is None \
-            else int(prefill_chunk_tokens)
-        if ct < 1:
-            raise ValueError(f"prefill_chunk_tokens must be >= 1, "
-                             f"got {prefill_chunk_tokens}")
-        # chunks END on page boundaries so the next chunk resumes on one
-        self.chunk_tokens = -(-ct // self.page_size) * self.page_size
+        self.chunked = bool(chunked_prefill)
+        self.chunk_tokens = 0
+        if self.chunked:
+            ct = self.page_size if prefill_chunk_tokens is None \
+                else int(prefill_chunk_tokens)
+            if ct < 1:
+                raise ValueError(f"prefill_chunk_tokens must be >= 1, "
+                                 f"got {prefill_chunk_tokens}")
+            # chunks END on page boundaries so the next chunk resumes on one
+            self.chunk_tokens = -(-ct // self.page_size) * self.page_size
+        self.bucket_prompts = bool(bucket_prompts)
         expected_len = int(expected_len or max_len)
 
         n_pages = None
@@ -308,38 +324,120 @@ class Engine:
                     break
                 self._preempt(self._youngest_active())
 
+    def _fault_pages(self, req: Request) -> int:
+        """Pages this request can fault in ONE step once decoding: the next
+        boundary crossing. (The JAX version adds a speculative request's
+        candidate span, which comes with drafts.)"""
+        return 1
+
     def _fault_reserve(self) -> int:
-        """Headroom pages for everything in flight: each may fault one page
-        on its next boundary crossing."""
-        return len(self.active_slots)
+        """Headroom pages for everything in flight: the per-request fault
+        bound summed."""
+        return sum(self._fault_pages(self.slot_req[s])
+                   for s in self.active_slots)
 
     def _can_admit(self, req: Request) -> bool:
-        """Chunk-granular admission gate: the FIRST chunk's pages must be
-        free, plus the fault reserve of everything in flight."""
-        first_end = min(self.chunk_tokens, len(req.prompt))
-        need = pages_per_seq(first_end, self.page_size) + self._fault_reserve()
+        """Page-gated admission. Chunked: the FIRST chunk's pages must be
+        free, plus the fault reserve of everything in flight. Whole-prompt:
+        all the prompt's pages, plus the reserve, plus the request's own
+        fault when the prompt ends on a page boundary (its first decode
+        write opens a fresh page)."""
+        plen = len(req.prompt)
+        if self.chunked:
+            first_end = min(self.chunk_tokens, plen)
+            need = (pages_per_seq(first_end, self.page_size)
+                    + self._fault_reserve())
+            return self.allocator.free_pages >= need
+        own_fault = self._fault_pages(req) \
+            if plen % self.page_size == 0 else self._fault_pages(req) - 1
+        need = (pages_per_seq(plen, self.page_size) + own_fault
+                + self._fault_reserve())
         return self.allocator.free_pages >= need
 
     def _admit(self, req: Request, slot: int) -> None:
-        """admitted -> chunking(0): no prefill here; the fused step's chunk
-        rows prefill the prompt."""
+        """Chunked: admitted -> chunking(0), no prefill here (the fused
+        step's chunk rows prefill the prompt). Whole-prompt: allocate the
+        prompt's pages, prefill it, emit the first token -> decoding."""
         req.t_admit = time.monotonic()
         self._admit_seq += 1
         req.admit_seq = self._admit_seq
+        if self.chunked:
+            self.slot_req[slot] = req
+            self.slot_chunk_pos[slot] = 0
+            return
+        plen = len(req.prompt)
+        ids = self.allocator.alloc(pages_per_seq(plen, self.page_size))
+        assert ids is not None, "admission checked page availability"
+        self.page_tbl[slot, :len(ids)] = ids
+        self.slot_pages[slot].extend(ids)
+        logits = self._run_partial_prefill(slot, req, 0, plen)
         self.slot_req[slot] = req
-        self.slot_chunk_pos[slot] = 0
+        self.slot_pos[slot] = plen               # position of its 1st token
+        # the admission's one readback: its last-token logits row
+        tok = self._sample(logits[0, -1].float().cpu().numpy())
+        self._emit(req, slot, tok, time.monotonic())
+
+    def _prefill_plan(self, prompt_len: int) -> tuple[int, int, bool]:
+        """(token_len, cache_len, masked) for a prompt span. Bucketing pads
+        the TOKENS to a power of two (at least a page, at most the page
+        table) and masks with valid_len; without it the tokens stay exact
+        and only the cache rounds up to a page multiple."""
+        if self.bucket_prompts:
+            b = pow2_ceil(prompt_len)
+            b = min(max(b, self.page_size), self._pps * self.page_size)
+            return b, b, True
+        cl = pages_per_seq(prompt_len, self.page_size) * self.page_size
+        return prompt_len, cl, False
+
+    def _run_partial_prefill(self, slot: int, req: Request, start: int,
+                             end: int) -> torch.Tensor:
+        """Prefill prompt[start:end) of ``slot``'s request into the page
+        pools (``start`` page-aligned; the span's pages already in the
+        table): pad or bucket the span, hand the slot's own pages
+        [0, start / page_size) to ``prefill`` as the prefix, and write the
+        returned cache into the span's pages. Returns the span's last-token
+        logits (1, 1, V). (The JAX version also publishes the span's full
+        pages to the prefix index; that comes with prefix sharing.)"""
+        ps, dev = self.page_size, self.device
+        span = req.prompt[start:end]
+        token_len, cache_len, masked = self._prefill_plan(len(span))
+        tokens = np.zeros(token_len, np.int32)
+        tokens[:len(span)] = span
+        start_pg = start // ps
+        pb = pow2_ceil(start_pg) if start_pg else 0
+        kw = {}
+        if pb:
+            ptbl = np.full(pb, -1, np.int32)
+            ptbl[:start_pg] = self.page_tbl[slot, :start_pg]
+            kw = dict(prefix_cache=self.cache,
+                      prefix_tbl=torch.from_numpy(ptbl).to(dev),
+                      prefix_len=start)
+        logits, pcache = prefill(
+            self.cfg, self.params, torch.from_numpy(tokens).to(dev)[None],
+            cache_len=cache_len, paged=True,
+            valid_len=len(span) if masked else None, **kw)
+        self.n_prefills += 1
+        self.n_prefill_tokens += len(span)
+        # span tiles map to logical pages [start_pg, ...)
+        row = np.full(self._pps, -1, np.int32)
+        row[:self._pps - start_pg] = self.page_tbl[slot, start_pg:]
+        assign_pages(self.cfg, self.cache, pcache,
+                     torch.from_numpy(row).to(dev), page_size=ps)
+        return logits
 
     def step(self) -> int:
         """One engine iteration (plan -> execute -> commit). Returns the
         number of tokens emitted."""
-        self._plan_admission()
-        return self._step_fused()
+        emitted = self._plan_admission()
+        return emitted + self._step_fused()
 
     def _plan_admission(self) -> int:
         """PLAN, phase 1: pop queued requests into free slots (FIFO,
         page-gated), paced by what the token budget leaves after charging
-        every decoding slot 1 token. The queue head always admits."""
+        every decoding slot 1 token. The queue head always admits. Returns
+        the tokens emitted (one per whole-prompt admission)."""
         free = [i for i, r in enumerate(self.slot_req) if r is None]
+        emitted = 0
         budget = None
         if self.step_tokens is not None:
             n_dec = sum(1 for s in self.active_slots
@@ -359,7 +457,9 @@ class Engine:
                     self.scheduler.requeue(r)
                 break
             self._admit(req, free.pop())
-        return 0           # chunked admission emits nothing
+            if not self.chunked:
+                emitted += 1                   # prefill emits a first token
+        return emitted
 
     def _plan_chunks(self, plan: StepPlan) -> dict[int, Request]:
         """PLAN, phase 2: grant page-aligned prompt spans to chunking slots,
@@ -507,8 +607,8 @@ class Engine:
                 for rid, r in sorted(self.finished.items())}
 
     def stats(self) -> dict:
-        """The engine's counters."""
-        return dict(
+        """The engine's counters (the chunk counters only when chunked)."""
+        s = dict(
             n=self.n_finished, n_slots=self.n_slots,
             n_decode_steps=self.n_decode_steps, n_prefills=self.n_prefills,
             n_prefill_tokens=self.n_prefill_tokens,
@@ -522,6 +622,10 @@ class Engine:
             peak_pages_in_use=self.allocator.peak_in_use,
             pool_utilization=(self._pool_in_use_sum
                               / max(1, self.n_decode_steps)
-                              / max(1, self.n_pages)),
-            n_chunks=self.n_chunks, prefill_chunk_tokens=self.chunk_tokens,
-            n_interleaved_decode_steps=self.n_interleaved_decode_steps)
+                              / max(1, self.n_pages)))
+        if self.chunked:
+            s.update(n_chunks=self.n_chunks,
+                     prefill_chunk_tokens=self.chunk_tokens,
+                     n_interleaved_decode_steps=
+                     self.n_interleaved_decode_steps)
+        return s

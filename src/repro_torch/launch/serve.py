@@ -1,20 +1,26 @@
-"""Serving driver: prompts in, tokens out, through the paged chunked engine.
+"""Serving entry points: prompts in, tokens out.
 
-Port of ``repro.launch.serve.serve_requests``. The JAX version runs the
-ring-layout engine by default; the port runs the paged, chunked, fused
-engine, the only one this slice carries. ``generate`` (the fixed-batch
-reference loop) needs the full-sequence path and K3, and comes with the
-next slice.
+Port of ``repro.launch.serve``:
+
+  serve_requests   runs the paged, fused engine (the JAX version runs the
+                   ring-layout engine by default; the port carries only
+                   the paged layout so far).
+  generate         the fixed-batch, fixed-length decode loop: ``prefill``
+                   (K3) into a monolithic cache, then ``decode_step`` at one
+                   shared position. It is the port's own greedy reference:
+                   the engine's tokens per request must equal it.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.engine import Engine
 from repro_torch.models.paging import DEFAULT_PAGE_SIZE
+from repro_torch.models.transformer import decode_step, prefill
 
 
 def serve_requests(cfg: ModelConfig, params, prompts: Sequence, *,
@@ -46,3 +52,33 @@ def serve_requests(cfg: ModelConfig, params, prompts: Sequence, *,
     rids = [eng.submit(p, max_new, strict=True) for p in prompts]
     out = eng.run()
     return [out[r] for r in rids], eng.stats()
+
+
+@torch.no_grad()
+def generate(cfg: ModelConfig, params, tokens, *, max_new: int,
+             greedy: bool = True, seed: int = 0) -> torch.Tensor:
+    """Fixed-batch generation: every sequence shares one position.
+    tokens: (B, S) int prompt (moved to the params' device). Returns
+    (B, max_new) int32 on that device.
+
+    The first token is the prompt's argmax, as in the JAX version. With
+    ``greedy=False`` the later tokens are drawn from softmax(logits) by a
+    ``torch.Generator`` seeded with ``seed``; they cannot equal the JAX
+    package's draws (another generator)."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens if isinstance(tokens, torch.Tensor)
+                             else np.asarray(tokens), device=dev).long()
+    b, s = tokens.shape
+    logits, cache = prefill(cfg, params, tokens, cache_len=s + max_new)
+    gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, cache = decode_step(cfg, params, tok, cache, s + i)
+        if greedy:
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        else:
+            tok = torch.multinomial(torch.softmax(logits[:, -1], dim=-1), 1,
+                                    generator=gen)
+        out.append(tok)
+    return torch.cat(out, dim=1).to(torch.int32)

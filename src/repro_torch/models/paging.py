@@ -1,7 +1,7 @@
 """Paged KV cache: page pools, refcounted page allocator, page arithmetic.
 
-Port of the parts of ``repro.models.paging`` the paged chunked engine
-runs. Every caching attention layer owns one pool pair
+Port of the parts of ``repro.models.paging`` the paged engine runs. Every
+caching attention layer owns one pool pair
 ``k_pages / v_pages: (n_pages, KV, page_size, hd)``. Pages are
 POSITION-ALIGNED: logical page ``l`` of a request holds absolute positions
 [l*page_size, (l+1)*page_size), so validity follows from the request's
@@ -15,6 +15,8 @@ one reference and a page returns to the free list only at refcount 0.
 ``ref`` and ``unref`` validate the whole id list before any mutation, so a
 rejected call changes nothing. ``alloc(0)`` returns ``[]``, as in the JAX
 package. Linearized (nbl/drop) layers carry no pool at all.
+``assign_pages`` writes an admission prefill's position-aligned cache into
+the pools.
 """
 from __future__ import annotations
 
@@ -93,6 +95,45 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
                 f"block kind {blk.kind!r} keeps no paged state in this slice "
                 "of the port; see ROADMAP.md §A8")
     return {"layers": layers}
+
+
+def sanitize_page_ids(ids: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """Map unallocated (-1) entries to the out-of-range id ``n_pages``, as
+    the JAX package does before its ``mode="drop"`` scatters; the port's
+    scatters then keep only ids < n_pages (torch has no drop mode)."""
+    return torch.where(ids >= 0, ids, torch.full_like(ids, n_pages)).int()
+
+
+def assign_pages(cfg: ModelConfig, paged_cache: dict, prefill_cache: dict,
+                 page_ids: torch.Tensor, *, page_size: int) -> dict:
+    """Write a batch-1 POSITION-ALIGNED prefill cache into the page pools,
+    in place.
+
+    ``prefill_cache`` comes from ``prefill(..., paged=True)`` with
+    ``cache_len`` a page multiple. ``page_ids`` holds >= cache_len //
+    page_size int32 entries (a page-table row is fine): entry i is the
+    physical page of logical page i, -1 for a page that was never
+    allocated (bucket padding), whose tile is DROPPED, never written. The
+    JAX version also takes the slot, for the slot-indexed state of block
+    kinds the port does not carry yet (ROADMAP.md §A8)."""
+    keep = ids = None          # every layer's cache has the same length
+    for blk, dst, src in zip(cfg.blocks(), paged_cache["layers"],
+                             prefill_cache["layers"]):
+        if blk.kind != "attn":
+            continue
+        for dk, sk in (("k_pages", "k"), ("v_pages", "v")):
+            pool, kv = dst[dk], src[sk]              # kv: (1, KV, S, hd)
+            _, kvh, s, hd = kv.shape
+            npg = s // page_size
+            if keep is None:
+                assert npg * page_size == s and npg <= page_ids.shape[0], \
+                    (s, page_size, tuple(page_ids.shape))
+                ids = sanitize_page_ids(page_ids[:npg], pool.shape[0])
+                keep = torch.nonzero(ids < pool.shape[0]).squeeze(1)
+                ids = ids[keep].long()
+            tiles = kv[0].reshape(kvh, npg, page_size, hd).transpose(0, 1)
+            pool[ids] = tiles[keep].to(pool.dtype)
+    return paged_cache
 
 
 def build_page_table(n_slots: int, max_len: int,

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: ``repro_torch`` imports no ``jax``
 and no module of the JAX package ``repro``, neither at run time (every
-module imported in a fresh interpreter) nor in its source (AST check)."""
+module imported in a fresh interpreter) nor in its source (AST check); nor
+does ``chip_smoke.py``, the script that drives the port on the GPU."""
 from __future__ import annotations
 
 import ast
@@ -14,6 +15,7 @@ import pytest
 pytest.importorskip("torch")
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+CHIP_SMOKE = PKG.parents[1] / "chip_smoke.py"
 
 
 def _modules() -> list[str]:
@@ -36,7 +38,8 @@ def test_package_modules_found():
     mods = _modules()
     for m in ("repro_torch", "repro_torch.launch.engine",
               "repro_torch.kernels.paged_attention",
-              "repro_torch.kernels.nbl_linear", "repro_torch.interop"):
+              "repro_torch.kernels.nbl_linear",
+              "repro_torch.kernels.flash_attention", "repro_torch.interop"):
         assert m in mods
 
 
@@ -58,17 +61,27 @@ def test_runtime_imports_no_jax_or_repro():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_source_imports_no_jax_or_repro():
+def _bad_imports(path: Path) -> list[str]:
+    """Every import of jax, jaxlib or repro in the file, at any depth."""
     bad = []
-    for path in sorted(PKG.rglob("*.py")):
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            bad += [f"{path.name}:{node.lineno} {n}" for n in names
-                    if _forbidden(n)]
-    assert bad == []
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                if _forbidden(n)]
+    return bad
+
+
+def test_source_imports_no_jax_or_repro():
+    assert [b for p in sorted(PKG.rglob("*.py")) for b in _bad_imports(p)] \
+        == []
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    assert CHIP_SMOKE.is_file()
+    assert _bad_imports(CHIP_SMOKE) == []

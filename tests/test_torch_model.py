@@ -73,9 +73,10 @@ def test_fused_step_matches_jax(arch, nbl):
     if nbl:
         assert len(cfg.stack) > 1                 # multi-group plan
         assert [b.kind for b in cfg.blocks()].count("nbl") == 2
-    params = from_jax_params(jcfg, jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jcfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     jc = jax_cache(jcfg, 4, MAX_LEN, page_size=PS, n_pages=N_PAGES)
-    tc = cache_from_jax(jcfg, jax.tree.map(np.asarray, jc))
+    tc = cache_from_jax(jcfg, jax.tree.map(np.asarray, jc), device="cpu")
     tbl = np.full((4, MAX_LEN // PS), -1, np.int32)
     tbl[0, :3] = [4, 7, 1]
     tbl[1, :2] = [2, 8]
@@ -93,7 +94,8 @@ def test_fused_step_matches_jax(arch, nbl):
         live = row_len > 0
         np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
                                    atol=1e-4, rtol=1e-4)
-        want = cache_from_jax(jcfg, jax.tree.map(np.asarray, jc))
+        want = cache_from_jax(jcfg, jax.tree.map(np.asarray, jc),
+                              device="cpu")
         for a, b in zip(tc["layers"], want["layers"]):
             assert (a is None) == (b is None)
             if a is not None:
@@ -130,7 +132,7 @@ def test_from_jax_params_unstacks_shared_and_scanned():
             {"scanned": [{"mixer": {"w": w_nbl}}], "shared": [None]},
         ],
     }
-    p = from_jax_params(cfg, params_np)
+    p = from_jax_params(cfg, params_np, device="cpu")
     layers = p["layers"]
     assert len(layers) == 7
     np.testing.assert_array_equal(layers[0]["mixer"]["wq"], w_attn[0])

@@ -31,7 +31,8 @@ def _setup(arch="tiny-dense", seed=0):
     jcfg = jax_config(arch)
     jparams = jax_init(jax.random.PRNGKey(seed), jcfg)
     cfg = config_from_jax(jcfg)
-    params = from_jax_params(jcfg, jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(jcfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     return jcfg, jparams, cfg, params
 
 
