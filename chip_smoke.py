@@ -2,12 +2,13 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase, as the check runs it
-    python3 chip_smoke.py --phases build,k1,k2,k3   # a short kernel check
+    python3 chip_smoke.py --phases build,k1,k2,k3,k4   # a short kernel check
 
 Phases, in order (each passes or raises; any failure exits non-zero):
 
   card     the card's name and power limit
-  build    nvcc builds K1, K2 and K3 from csrc/ into build/ (in parallel)
+  build    nvcc builds K1, K2, K3 and K4 from csrc/ into build/ (in
+           parallel)
   k1       K1 (paged attention, mixed rows) against its plain version at
            Llama-3.1-8B shapes (KV=8, rep=4, hd=128, page_size=64), bf16
            and float32, with window=32/softcap=50 in one case
@@ -18,6 +19,11 @@ Phases, in order (each passes or raises; any failure exits non-zero):
            a bucketed prompt, a partial prefill with T = 1024 + 512, one
            case with window=32/softcap=50) and at hd 16/32/64/256, rep
            1/2/8, ragged S, T != S, non-causal; bf16 and float32
+  k4       K4 (covariance accumulation acc += y^T x) against its plain
+           version: T in {1, 1000, 4096} x (Dy, Dx) in {(4096, 4096),
+           (512, 256), (256, 512), (4096, 1000)}, the Gram update
+           (y=None), ragged widths; float32 and bf16 inputs, a non-zero
+           acc, a two-call running sum, bit-equal repeat runs
   tiny     tiny-dense and NBL-2 tiny-dense served on the CPU and on the GPU
            from the same weights: the greedy tokens must be equal
   llama    Llama-3.1-8B at full width (random weights from a seed, bf16)
@@ -36,10 +42,22 @@ Phases, in order (each passes or raises; any failure exits non-zero):
            and NBL-2 tiny-dense; Llama NBL-12 at B=4, S=512: generate's
            prefill logits against each Engine admission's (bf16
            tolerance), token agreement printed
+  compress tiny-dense nbl_compress(m=2) on the CPU and on the GPU from the
+           same weights (same layers, bounds within 1e-5 relative, W within
+           1e-4, equal greedy tokens of the compressed model); then
+           Llama-3.1-8B (the llama phase's dense weights) compressed by
+           nbl_compress(m=12) over all 32 attention layers on 4 x 4 x 1024
+           calibration tokens (K3 in the tapped forwards, K4 in every
+           moment update; launch counts asserted), Theorem 3.2 checked per
+           layer, and the NBL-12 model it chose served through
+           Engine(paged, chunked) on the llama phase's 8 requests (K1, K2
+           counts asserted); prints the chosen layers, every bound, the
+           seconds of forward / moments / CCA+LMMSE and tokens/s
   table    each kernel's time at the llama phase's decode and 512-token
-           chunk shapes (K1, K2) and at the admission shapes S=512 and
-           S=2048 (K3), beside its plain version, its bound and a
-           library yardstick the port never calls
+           chunk shapes (K1, K2), at the admission shapes S=512 and
+           S=2048 (K3) and at one moment update of the compress phase
+           (K4), beside its plain version, its bound and a library
+           yardstick the port never calls
   profile  (only when named) the llama phase's NBL-12 run once more, and
            the admit phase's 8 admissions alone, under torch.profiler:
            device time by kernel family, the device's idle share of the
@@ -61,8 +79,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("card", "build", "k1", "k2", "k3", "tiny", "llama", "admit",
-          "generate", "table")
+PHASES = ("card", "build", "k1", "k2", "k3", "k4", "tiny", "llama", "admit",
+          "generate", "compress", "table")
 EXTRA_PHASES = ("profile",)         # run only when named in --phases
 
 # H100 SXM data-sheet peaks (dense): bytes/s of HBM3 and ops/s per type.
@@ -75,12 +93,23 @@ K2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # K3 bf16: the kernel rounds the probability tile to bf16 for the PV
 # product (the plain version keeps it float32) and rounds the output once
 K3_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+# K4: float32 sums over T; both versions round each partial sum, in
+# another order, so the bound scales with sum_t |y||x| (plus |acc_in|)
+K4_TOL = 1e-5
 # Llama logits, generate's batch-4 prefill vs an engine admission at batch
 # 1: the same kernels on the same rows, but cuBLAS tiles batch-4 and
 # batch-1 GEMMs differently, and 32 bf16 layers (8-bit mantissa, one ulp
 # ~ 0.4 %) compound the rounding differences
 LOGIT_TOL_BF16 = 0.1                # atol = rtol
 NBL_LAYERS = tuple(range(20, 32))   # paper m=12: the deepest 12 attention layers
+# compress phase: Llama calibration stream, 4 x 1024 tokens a batch; more
+# tokens than d = 4096 (with fewer, C_XX is singular and every canonical
+# correlation is 1)
+CALIB = dict(batch=4, seq=1024, n_batches=4)
+# tiny-dense NBL-2 compressed on the CPU and on the GPU: float32 moments
+# summed in another order, so bounds and maps agree to float32 rounding
+TINY_BOUND_RTOL = 1e-5
+TINY_W_ATOL = 1e-4
 
 
 def log(*a):
@@ -309,6 +338,8 @@ def _k3_cases():
         ("S=128 causal", dict(pos=_causal(128))),
         ("S=512 causal", dict(pos=_causal(512))),
         ("S=2048 causal", dict(pos=_causal(2048))),
+        ("B=4 S=1024 causal (calibration forward)",
+         dict(b=4, pos=_causal(1024))),
         ("S=2048 bucket of a 1499-token prompt",
          dict(pos=_bucket(2048, 1499))),
         ("partial prefill S=512 over 16 prefix pages (T=1024+512, prefix "
@@ -343,6 +374,69 @@ def phase_k3(torch, dev):
             geo = "" if "hd" in c else "Llama H=32 KV=8 hd=128 "
             worst = max(worst, _k3_check(torch, gen, dev, dtype, c,
                                          geo + label))
+    return worst
+
+
+# ------------------------------------------------------------------ K4 ----
+
+def _k4_check(torch, gen, dev, dtype, t, dy, dx, gram, label):
+    """K4 against its plain version on one case, from a non-zero acc and
+    as a running sum over two calls; two runs must be bit-equal. Returns
+    max |err|."""
+    from repro_torch.kernels.cov_accum import cov_accum, cov_accum_ref
+    x = torch.randn((t, dx), generator=gen, device=dev).to(dtype)
+    y = None if gram else torch.randn((t, dy), generator=gen,
+                                      device=dev).to(dtype)
+    acc0 = torch.randn((dx if gram else dy, dx), generator=gen, device=dev)
+    yy = x if gram else y
+    ref = cov_accum_ref(acc0, x, y)
+    # per entry: K4_TOL * (sum_t |y||x| + |acc_in|), the float32 rounding
+    # of a sum of that magnitude, in either summation order
+    scale = yy.float().abs().t() @ x.float().abs() + acc0.abs()
+    runs = []
+    for _ in range(2):
+        a = acc0.clone()
+        if cov_accum(a, x, y) is not a:
+            raise AssertionError("K4 did not update acc in place")
+        runs.append(a)
+    half = t // 2
+    two = acc0.clone()                          # running sum over two calls
+    if half:
+        cov_accum(two, x[:half].contiguous(),
+                  None if gram else y[:half].contiguous())
+    cov_accum(two, x[half:].contiguous(),
+              None if gram else y[half:].contiguous())
+    torch.cuda.synchronize()
+    err = max((r - ref).abs().max().item() for r in (runs[0], two))
+    bad = sum(((r - ref).abs() > K4_TOL * scale).sum().item()
+              for r in (runs[0], two))
+    same = torch.equal(runs[0], runs[1])
+    log(f"  k4 {_dtname(dtype):8s} {label}: max|err| {err:.3e} "
+        f"(one call and two-call running sum; atol {K4_TOL} x "
+        f"(sum_t |y||x| + |acc|) per entry); repeat bit-equal: {same}")
+    if bad or not same or not torch.isfinite(runs[0]).all():
+        raise AssertionError(f"K4 disagrees with its plain version ({bad} "
+                             f"elements out of tolerance) or is not "
+                             f"deterministic (bit-equal repeat: {same})")
+    return err
+
+
+def phase_k4(torch, dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (1, 1000, 4096):
+            for dy, dx in ((4096, 4096), (512, 256), (256, 512), (4096, 1000)):
+                worst = max(worst, _k4_check(
+                    torch, gen, dev, dtype, t, dy, dx, False,
+                    f"T={t:4d} Dy={dy:4d} Dx={dx:4d}"))
+            for dx in (4096, 1000):
+                worst = max(worst, _k4_check(
+                    torch, gen, dev, dtype, t, dx, dx, True,
+                    f"T={t:4d} Gram (y=None) D={dx:4d}"))
+        # widths that are not multiples of 4 take the element-wise loads
+        worst = max(worst, _k4_check(torch, gen, dev, dtype, 333, 70, 130,
+                                     False, "T= 333 Dy=  70 Dx= 130"))
     return worst
 
 
@@ -632,6 +726,120 @@ def phase_generate(torch, dev, ctx):
                              "on the first-token logits")
 
 
+# ------------------------------------------------------------ compress ----
+
+def _compress_tiny(torch, dev):
+    """tiny-dense NBL-2 compressed on the CPU and on the GPU from the same
+    weights: same layers, bounds and maps; then the same greedy tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import nbl_compress
+    from repro_torch.data import calib_factory
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.transformer import init_params, params_to
+
+    cfg = get_config("tiny-dense")
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+    fac = calib_factory(cfg)
+    c_cfg, c_cpu, r_cpu = nbl_compress(cfg, p_cpu, fac, 2, device="cpu")
+    g_cfg, c_gpu, r_gpu = nbl_compress(cfg, params_to(p_cpu, dev), fac, 2,
+                                       device=dev)
+    b_err = max(abs(r_gpu.bounds[i] - r_cpu.bounds[i]) / r_cpu.bounds[i]
+                for i in r_cpu.bounds)
+    w_err = max((c_gpu["layers"][i]["mixer"][n].cpu()
+                 - c_cpu["layers"][i]["mixer"][n]).abs().max().item()
+                for i in r_cpu.layers for n in ("w", "b"))
+    w_max = max(c_cpu["layers"][i]["mixer"]["w"].abs().max().item()
+                for i in r_cpu.layers)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 8, 17, 24, 33)]
+    kw = dict(max_new=8, page_size=8, step_tokens=16)
+    cpu, _ = serve_requests(c_cfg, c_cpu, prompts, device="cpu", **kw)
+    gpu, _ = serve_requests(g_cfg, c_gpu, prompts, device=dev, **kw)
+    same = all(np.array_equal(a, g) for a, g in zip(cpu, gpu))
+    log(f"  tiny-dense nbl_compress(m=2), CPU vs GPU: layers "
+        f"{r_cpu.layers} / {r_gpu.layers}; bounds max rel diff {b_err:.2e} "
+        f"(limit {TINY_BOUND_RTOL}); W, b max |diff| {w_err:.2e} (max |W| "
+        f"{w_max:.3f}, limit {TINY_W_ATOL}); greedy tokens of the "
+        f"compressed model equal CPU vs GPU: {same}")
+    if (r_cpu.layers != r_gpu.layers or b_err > TINY_BOUND_RTOL
+            or w_err > TINY_W_ATOL or not same):
+        raise AssertionError("tiny-dense compression differs between the "
+                             "CPU and the GPU")
+
+
+def phase_compress(torch, dev, ctx):
+    import math
+    from repro_torch.core import nbl_compress
+    from repro_torch.data import calib_factory
+    from repro_torch.kernels import K1, K2, K3, K4
+
+    _compress_tiny(torch, dev)
+
+    cfg, params, _, _, prompts = _llama_model(torch, dev, ctx)
+    d, n_attn = cfg.d_model, len(cfg.attn_layer_indices())
+    fac = calib_factory(cfg, **CALIB)
+    n_tok = CALIB["batch"] * CALIB["seq"] * CALIB["n_batches"]
+    log(f"  llama-3.1-8b (the dense weights of the llama phase): "
+        f"nbl_compress(m={len(NBL_LAYERS)}) over all {n_attn} attention "
+        f"layers, calib_factory({CALIB}): {n_tok} calibration tokens "
+        f"(> d = {d}), chunk_layers=8")
+    timings: dict = {}
+    K3.reset()
+    K4.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ccfg, cparams, rep = nbl_compress(cfg, params, fac, len(NBL_LAYERS),
+                                      device=dev, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3_n, k4_n = K3.launches, K4.launches
+    replays = math.ceil(n_attn / 8)
+    want = (replays * CALIB["n_batches"] * n_attn,
+            4 * n_attn * CALIB["n_batches"])
+    log(f"  {wall:.1f} s: forward (taps) {timings['forward_s']:.2f} s, "
+        f"moments (4 K4 launches a layer and batch, plus the float32 "
+        f"casts and vector sums) {timings['moments_s']:.2f} s, finalize + "
+        f"CCA + LMMSE (float64, torch.linalg) {timings['solve_s']:.2f} s; "
+        f"{n_tok / wall:.0f} calibration tokens/s ({timings['tokens']} "
+        f"tokens streamed over {replays} replays); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"  launches: K3 {k3_n} (= {replays} replays x "
+        f"{CALIB['n_batches']} batches x {n_attn} layers: {k3_n == want[0]}),"
+        f" K4 {k4_n} (= 4 x {n_attn} layers x {CALIB['n_batches']} batches: "
+        f"{k4_n == want[1]})")
+    bad = [i for i in rep.bounds
+           if not (math.isfinite(rep.bounds[i]) and 0 <= rep.bounds[i] <= d
+                   and rep.nmse[i] <= rep.bounds[i] + 1e-6)]
+    log(f"  chosen layers (lowest bound first): {rep.layers}")
+    for i in sorted(rep.bounds):
+        log(f"    layer {i:2d}: bound {rep.bounds[i]:10.4f}  nmse "
+            f"{rep.nmse[i]:.6f}  cos_dist {rep.cos_dists[i]:.6f}"
+            f"{'  <- linearized' if i in rep.layers else ''}")
+    log(f"  every bound finite, in [0, {d}], and nmse <= bound + 1e-6 "
+        f"(Theorem 3.2): {not bad}; {len(set(rep.layers))} distinct layers "
+        f"chosen")
+    if (k3_n, k4_n) != want or bad or len(set(rep.layers)) != len(NBL_LAYERS):
+        raise AssertionError(f"compression failed its checks: launches "
+                             f"{(k3_n, k4_n)} != {want} or layers {bad} "
+                             f"break the bound, or layers {rep.layers}")
+
+    n_att, n_nbl = _kinds(ccfg)
+    K1.reset()
+    K2.reset()
+    run = _serve_llama(torch, ccfg, cparams, prompts, dev)
+    k1_n, k2_n, disp = K1.launches, K2.launches, run["dispatches"]
+    log(f"  the compressed NBL-{n_nbl} model served (Engine, paged, chunked): "
+        f"{run['tokens']} tokens in {run['wall_s']:.3f} s -> "
+        f"{run['tok_s']:.1f} generated tok/s, {disp} fused steps; K1 "
+        f"{k1_n} (= {n_att} x {disp}: {k1_n == n_att * disp}), K2 {k2_n} "
+        f"(= {n_nbl} x {disp}: {k2_n == n_nbl * disp})")
+    if k1_n != n_att * disp or k2_n != n_nbl * disp or disp == 0:
+        raise AssertionError("the compressed model was not served through "
+                             "K1 and K2")
+    ctx.update(k4_launches=k4_n, compress_s=wall)
+
+
 # --------------------------------------------------------------- table ----
 
 def _k1_bound(row_pos, row_len, kv, rep, hd, ps, tbl, dtype_bytes, ops_peak):
@@ -759,9 +967,11 @@ def phase_table(torch, dev, ctx, errs):
     for tag, s in (("s2048", 2048), ("s512", 512)):
         out[("flash_attention", tag)] = _k3_table_row(torch, gen, dev, cfg, s)
 
+    k4 = _k4_table_row(torch, gen, dev, cfg.d_model)
     log(f"  ported kernels, launches on their path's run: paged_mixed "
         f"{ctx['k1_launches']} and nbl_linear {ctx['k2_launches']} (llama "
-        f"phase, chunked), flash_attention {ctx['k3_launches']} (admit phase)")
+        f"phase, chunked), flash_attention {ctx['k3_launches']} (admit "
+        f"phase), cov_accum {ctx['k4_launches']} (compress phase)")
     kernels = []
     for name, source, replaces, launches, perr, main, other in (
             ("paged_mixed", "src/repro_torch/csrc/paged_attention.cu",
@@ -785,7 +995,45 @@ def phase_table(torch, dev, ctx, errs):
                    "causal)"),
             **{other: {k: cc[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}))
+    kernels.append(dict(
+        name="cov_accum", route="cuda",
+        source="src/repro_torch/csrc/cov_accum.cu",
+        replaces="src/repro/kernels/cov_accum.py:53",
+        launches=ctx["k4_launches"],
+        max_abs_err=max(errs.get("k4", 0.0), k4["max_abs_err"]),
+        **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        shape=f"one moment update of the compress phase: T={k4['t']} "
+              f"tokens, Dy=Dx={cfg.d_model}, float32"))
     return kernels
+
+
+def _k4_table_row(torch, gen, dev, d):
+    """K4 at the compress phase's shape: one d x d moment update over one
+    calibration batch (T tokens, float32 taps), from a running acc."""
+    from repro_torch.kernels.cov_accum import cov_accum, cov_accum_ref
+    t = CALIB["batch"] * CALIB["seq"]
+    sets = [(torch.zeros((d, d), device=dev),
+             torch.randn((t, d), generator=gen, device=dev),
+             torch.randn((t, d), generator=gen, device=dev))
+            for _ in range(2)]
+    k_ms = _time_ms(cov_accum, sets, 20)
+    p_ms = _time_ms(cov_accum_ref, sets, 6, 1)
+    l_ms = _time_ms(lambda a, x, y: a.addmm_(y.t(), x), sets, 20)
+    _, x, y = sets[0]
+    acc = torch.zeros((d, d), device=dev)
+    err = (cov_accum(acc, x, y) - cov_accum_ref(torch.zeros_like(acc), x, y)
+           ).abs().max().item()
+    # each input read once, acc read once and written once; 2*T*Dy*Dx
+    # float32 operations on the CUDA cores
+    nbytes = 4 * (2 * t * d + 2 * d * d)
+    tb, to = nbytes / HBM_BYTES_S, 2.0 * t * d * d / PEAK_OPS_S["float32"]
+    b_ms, b_by = 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+    log(f"  K4 cov_accum    T={t} Dy=Dx={d} float32 (one moment update): "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, addmm_ {l_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.2e}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms, max_abs_err=err, t=t)
 
 
 def _k3_bound(qpos, kpos, b, h, kv, hd, dtype_bytes, ops_peak):
@@ -836,6 +1084,12 @@ def _family(name: str) -> str:
         return "K2 nbl_linear"
     if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
         return "K3 flash_attention"
+    if "cov_accum_kernel" in name:
+        return "K4 cov_accum"
+    if any(s in low for s in ("syevd", "sytrd", "stedc", "ormtr", "syev",
+                              "getrf", "getrs", "laswp", "cusolver",
+                              "lapack", "steqr", "larf", "latrd")):
+        return "cuSOLVER (eigh, eigvalsh, solve)"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "cublas", "gemv",
                               "nvjet")):
         return "cuBLAS GEMM/GEMV (nvjet, cutlass)"
@@ -909,6 +1163,19 @@ def phase_profile(torch, dev, ctx):
         f"{eng.n_prefill_tokens} prompt tokens")
     _log_profile(wall, busy, fam, names)
 
+    # one layer chunk of the compress phase's calibration (8 of the 32
+    # layers: one replay of the stream, 8 finalize + CCA + LMMSE)
+    from repro_torch.core import calibrate
+    from repro_torch.data import calib_factory
+    cfg, params, _, _, _ = _llama_model(torch, dev, ctx)
+    _, wall, busy, fam, names = _profiled(torch, lambda: calibrate(
+        cfg, params, calib_factory(cfg, **CALIB), layers=range(24, 32),
+        device=dev))
+    log(f"  profiled calibration of layers 24..31 (one replay of "
+        f"{CALIB}; unprofiled, the compress phase's 32 layers took "
+        f"{ctx.get('compress_s', float('nan')):.1f} s)")
+    _log_profile(wall, busy, fam, names)
+
 
 # ---------------------------------------------------------------- main ----
 
@@ -975,6 +1242,8 @@ def main(argv=None) -> int:
                 errs["k2"] = phase_k2(torch, dev)
             elif ph == "k3":
                 errs["k3"] = phase_k3(torch, dev)
+            elif ph == "k4":
+                errs["k4"] = phase_k4(torch, dev)
             elif ph == "tiny":
                 phase_tiny(torch, dev)
             elif ph == "llama":
@@ -983,6 +1252,8 @@ def main(argv=None) -> int:
                 phase_admit(torch, dev, ctx)
             elif ph == "generate":
                 phase_generate(torch, dev, ctx)
+            elif ph == "compress":
+                phase_compress(torch, dev, ctx)
             elif ph == "table":
                 kernels = phase_table(torch, dev, ctx, errs)
             elif ph == "profile":

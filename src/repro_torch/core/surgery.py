@@ -1,19 +1,24 @@
-"""Model surgery, config half: rewrite a config's stack plan after
+"""Model surgery: rewrite a config's stack plan and its params after
 linearizing (NBL) or removing (DROP/SLEB) blocks.
 
-This is the port's copy of the config functions of
-``repro.core.surgery``. With them an NBL-m config is built without
-calibration; the per-layer (W, b) maps come from calibration in a later
-slice, or from ``models.transformer.init_nbl_linear`` for random-weight
-runs. The regrouping into maximal repeated runs is kept so a port config
-and its JAX twin have the same ``stack`` (and so the same params layout
-for ``interop.from_jax_params``).
+The port's copy of ``repro.core.surgery``. The config half regroups the
+flat block list into maximal repeated runs, so a port config and its JAX
+twin have the same ``stack`` (and so the same params layout for
+``interop.from_jax_params``). The params half is simpler than the JAX
+one: the port's params are a per-layer list (no stacking per group), so
+``compress_params`` rewrites the chosen layers and keeps every other
+layer dict as it is. A shared block's dict is the same object at every
+position it runs; a rewritten layer always gets a new dict, so the shared
+one is never mutated.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Mapping, Optional
+
+import torch
 
 from repro_torch.configs.base import Block, ModelConfig, StackGroup
+from repro_torch.device import torch_dtype
 
 MODES = ("nbl", "drop", "nbl_block", "drop_block")
 
@@ -80,3 +85,55 @@ def nbl_variant(cfg: ModelConfig, m: int) -> ModelConfig:
     m=0 returns the config unchanged."""
     cand = cfg.attn_layer_indices()
     return compress_config(cfg, cand[-m:], "nbl") if m else cfg
+
+
+def _transform_params(p_old: dict, mode: str, linear, dtype,
+                      device) -> dict:
+    """Per-layer param rewrite into a new dict. ``linear`` = (W (d_out,
+    d_in), b) from LMMSE, tensors or numpy arrays. The model computes
+    h = x @ w + b, so w stores Wᵀ in the param dtype."""
+    if mode in ("nbl", "nbl_block"):
+        if linear is None:
+            raise ValueError("NBL needs the LMMSE (W, b) of every layer")
+        w, b = (torch.as_tensor(a, device=device) for a in linear)
+        mixer = {"w": w.t().to(dtype).contiguous(),
+                 "b": b.to(dtype).contiguous()}
+        if mode == "nbl_block":
+            return {"mixer": mixer}
+        p = {"mixer": mixer}
+    elif mode == "drop":
+        p = {}
+    else:  # drop_block
+        return {}
+    # retain the FFN path (and its norm) untouched
+    for k in ("norm2", "ffn"):
+        if k in p_old:
+            p[k] = p_old[k]
+    return p
+
+
+def compress_params(cfg: ModelConfig, params: dict, layer_ids: Iterable[int],
+                    mode: str = "nbl",
+                    linear_maps: Optional[Mapping[int, tuple]] = None) -> dict:
+    """Params for ``compress_config(cfg, layer_ids, mode)``: a new top-level
+    dict and layer list; the rewritten layers get new dicts, every other
+    layer (and every other tensor) is shared with ``params``. (The JAX
+    version also takes the new config, to re-stack its groups; the port's
+    per-layer list needs no re-stacking.)"""
+    ids = set(layer_ids)
+    dtype = torch_dtype(cfg.param_dtype)
+    device = params["embed"].device
+    layers = list(params["layers"])
+    for i in ids:
+        lin = None if linear_maps is None else linear_maps.get(i)
+        layers[i] = _transform_params(layers[i], mode, lin, dtype, device)
+    return dict(params, layers=layers)
+
+
+def compress(cfg: ModelConfig, params: dict, layer_ids: Iterable[int],
+             mode: str = "nbl",
+             linear_maps: Optional[Mapping[int, tuple]] = None
+             ) -> tuple[ModelConfig, dict]:
+    layer_ids = list(layer_ids)
+    new_cfg = compress_config(cfg, layer_ids, mode)
+    return new_cfg, compress_params(cfg, params, layer_ids, mode, linear_maps)

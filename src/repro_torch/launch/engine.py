@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import params_device
 from repro_torch.launch.scheduler import Request, Scheduler, nbl_page_budget
 from repro_torch.launch.stepplan import (
     ChunkRow, StepPlan, chunk_span, decode_first_budget,
@@ -111,11 +111,7 @@ class Engine:
                           ("drafts", drafts), ("obs", obs is not None)):
             if val:
                 raise _later(name)
-        self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine on {self.device}: move them with "
-                             "models.transformer.params_to")
+        self.device = params_device(params, device)
         self.page_size = int(page_size)
         if self.page_size < 1 or self.page_size & (self.page_size - 1):
             raise ValueError(f"page_size must be a power of two, "

@@ -1,4 +1,5 @@
-"""Model assembly: init, the full-sequence forward (``apply``), ``prefill``,
+"""Model assembly: init, the full-sequence forward (``apply``, ``loss_fn``),
+the calibration forward (``forward_with_taps``), ``prefill``,
 ``decode_step`` and the engine's ``fused_step``.
 
 Port of ``repro.models.transformer``. Parameters are a plain dict of
@@ -279,6 +280,66 @@ def apply(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     for blk, p in zip(cfg.blocks(), params["layers"]):
         x, _ = _block_fwd(cfg, blk, p, x, mode="train", positions=positions)
     return _logits(cfg, params, x), torch.zeros((), device=x.device)
+
+
+@torch.no_grad()
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Causal-LM loss for evaluation. batch: ``tokens`` (B, S) and
+    ``labels`` (B, S) with -1 = masked (numpy or tensors; moved to the
+    params' device). Returns (loss, metrics) as float32 tensors: ``loss``,
+    ``ce``, ``aux``, ``ntokens``. No gradient: training is a later slice."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    logits, aux = apply(cfg, params, tokens)
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    at = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    ntok = mask.sum().clamp_min(1.0)
+    ce = ((lse - at) * mask).sum() / ntok
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "ntokens": ntok}
+
+
+@torch.no_grad()
+def forward_with_taps(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                      *, tap_layers=(), tap_block: bool = False,
+                      need_logits: bool = False):
+    """Full-sequence forward recording (X, Y) per tapped layer (the NBL
+    calibration path; attention runs K3 at positions ``arange(S)``, NBL
+    layers K2).
+
+    X = the block's residual-stream input, in the compute dtype;
+    Y = the attention output before the residual, float32
+        (``tap_block=False``, Attn NBL; only attention layers are tapped),
+        or the whole block's delta ``(x_out - X).float()``
+        (``tap_block=True``, Block NBL).
+    Returns (logits float32 (B, S, V) if ``need_logits`` else None,
+    {layer: (X, Y)})."""
+    dt = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens.long(), dt)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    taps = {}
+    for i, (blk, p) in enumerate(zip(cfg.blocks(), params["layers"])):
+        want = i in tap_layers
+        x_in = x
+        if want and not tap_block and blk.kind == "attn":
+            h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+            y, _ = self_attention(cfg, p["mixer"], h, window=blk.window,
+                                  positions=positions)
+            taps[i] = (x_in, y.float())
+            x = x + y.to(x.dtype)
+            if blk.ffn == "dense":
+                h2 = rmsnorm(x, p["norm2"], cfg.norm_eps)
+                x = x + mlp(p["ffn"], h2, cfg.mlp_act).to(x.dtype)
+        else:
+            x, _ = _block_fwd(cfg, blk, p, x, mode="train",
+                              positions=positions)
+            if want and tap_block:
+                taps[i] = (x_in, (x - x_in).float())
+    logits = _logits(cfg, params, x) if need_logits else None
+    return logits, taps
 
 
 @torch.no_grad()

@@ -39,7 +39,13 @@ def test_package_modules_found():
     for m in ("repro_torch", "repro_torch.launch.engine",
               "repro_torch.kernels.paged_attention",
               "repro_torch.kernels.nbl_linear",
-              "repro_torch.kernels.flash_attention", "repro_torch.interop"):
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.cov_accum", "repro_torch.core.calibrate",
+              "repro_torch.core.moments", "repro_torch.core.cca",
+              "repro_torch.core.lmmse", "repro_torch.core.selection",
+              "repro_torch.core.api", "repro_torch.core.drop",
+              "repro_torch.data.synthetic", "repro_torch.eval.perplexity",
+              "repro_torch.interop"):
         assert m in mods
 
 
